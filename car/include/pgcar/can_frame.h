@@ -38,7 +38,7 @@ int16_t ParseCanInt16(const uint8_t *bytes);
 // Overflow-safe truncated integer mean. NOTE: the reference's version
 // (kia_can.cc:27-36) accumulates v - v/n where v % n is evidently intended,
 // inflating the result ~1.75x for n=4; this is the corrected computation
-// (see pilotguru_tpu/formats/can.py for the parity discussion).
+// (see pilotguru/formats/can.py for the parity discussion).
 int16_t IntegerAverage(const int16_t *values, size_t count);
 
 struct SteeringAngle {

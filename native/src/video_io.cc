@@ -8,7 +8,7 @@
 // (ffmpeg 5.x).
 //
 // Build: native/CMakeLists.txt -> libpgvideo.so; Python binding:
-// pilotguru_tpu/video/native.py.
+// pilotguru/video/native.py.
 
 #include <cstdint>
 #include <cstring>

@@ -1,9 +1,10 @@
 """Test harness configuration.
 
-Tests run hermetically on CPU with 8 virtual devices (so multi-chip sharding
-logic is exercised without TPU hardware) and with x64 enabled (so numeric
-parity with the float64 reference semantics is checked at full precision).
-The real-TPU path is exercised by bench.py / __graft_entry__.py instead.
+Tests run hermetically on the CPU with 8 virtual devices (so multi-device
+sharding logic is exercised without accelerator hardware) and with x64
+enabled (so numeric parity with the float64 reference semantics is checked
+at full precision). Tests marked ``gpu`` need a GPU and skip elsewhere; the
+float32 path on the card is exercised by ``chip_smoke.py``.
 """
 
 import os
@@ -13,15 +14,32 @@ os.environ["XLA_FLAGS"] = (
 )
 
 import jax  # noqa: E402
+import pytest  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+# CPU unless JAX_PLATFORMS names a platform (the ``gpu`` tests run with
+# JAX_PLATFORMS=cuda,cpu on the card).
+jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS") or "cpu")
 jax.config.update("jax_enable_x64", True)
 
 # The slow tier is dominated by XLA compiles of shape-bucketed tracker/BA
-# programs on this 1-core host; a persistent compilation cache makes repeat
-# runs (and shared shapes across test files) pay each compile once.
-_CACHE_DIR = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), ".jax_compile_cache"
-)
-jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+# programs; a persistent compilation cache makes repeat runs (and shared
+# shapes across test files) pay each compile once.
+from pilotguru.cli._common import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
+
+
+@pytest.fixture
+def gpu_device():
+    """The first GPU device; skips the test when none is present.
+
+    Decided here, at run time, never at import or collection: every xdist
+    worker must collect the same tests.
+    """
+    try:
+        devices = jax.devices("gpu")
+    except RuntimeError:
+        devices = []
+    if not devices:
+        pytest.skip("needs a GPU (run on the card: see README)")
+    return devices[0]

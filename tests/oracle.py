@@ -2,7 +2,7 @@
 
 These are deliberately naive sequential re-derivations of the reference
 algorithms' documented semantics (cited per function), used as ground truth
-for the vectorized TPU implementations. They mirror *behavior*, not code.
+for the vectorized device implementations. They mirror *behavior*, not code.
 """
 
 from __future__ import annotations

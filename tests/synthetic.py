@@ -154,7 +154,7 @@ def write_ride_jsons(ride: Ride, out_dir: str):
     """Write recorder-format rotations/accelerations/locations/frames JSONs."""
     import os
 
-    from pilotguru_tpu.formats import json_io, keys
+    from pilotguru.formats import json_io, keys
 
     os.makedirs(out_dir, exist_ok=True)
 
@@ -198,8 +198,7 @@ def write_ride_jsons(ride: Ride, out_dir: str):
     return out_dir
 
 
-def render_parallax_video(
-    path: str,
+def parallax_frames(
     width: int = 320,
     height: int = 240,
     frames: int = 120,
@@ -212,16 +211,16 @@ def render_parallax_video(
     forward_speed: float = 0.015,
     corridor: bool = False,
 ):
-    """Render a curving drive through random textured billboards.
+    """Draw a curving drive through random textured billboards, in numpy.
 
-    Returns (fx, fy, cx, cy, true_yaw_rate_per_frame). The camera follows a
-    planar curving path (so the PCA flatness test accepts the trajectory),
-    with yaw following the path direction. ``distortion`` = (k1, k2, p1, p2)
-    applies the OpenCV radial/tangential lens model to the projection, so
-    the tracker's keypoint undistortion path is exercised end to end.
+    Yields ``frames`` grayscale uint8 [height, width] images. The camera
+    follows a planar curving path (so the PCA flatness test accepts the
+    trajectory), with yaw following the path direction. ``distortion`` =
+    (k1, k2, p1, p2) applies the OpenCV radial/tangential lens model to the
+    projection, so the tracker's keypoint undistortion path is exercised
+    end to end. Camera intrinsics: (fx, fx, width / 2, height / 2); the
+    analytic yaw rate is ``parallax_yaw_rates``.
     """
-    import cv2
-
     k1, k2, p1, p2 = distortion
     rng = np.random.default_rng(seed)
     cx, cy = width / 2.0, height / 2.0
@@ -246,19 +245,12 @@ def render_parallax_video(
             axis=1,
         )
         shade = rng.integers(90, 255, num_points)
-    # Lateral-swing period: any tracked SEGMENT must see a full 2-D sweep,
-    # or the trajectory-plane test (lambda3 > 1e-2 * lambda2,
-    # track_image_sequence.cc:85-92) rejects the near-collinear stretch.
-    period = period_frames or 1.25 * frames
-    yaw_of = lambda t: 0.25 * np.cos(2 * np.pi * t / period)
-    writer = cv2.VideoWriter(
-        path, cv2.VideoWriter_fourcc(*"mp4v"), 30.0, (width, height)
-    )
+    period = _yaw_period(frames, period_frames)
     for t in range(frames):
         cam_t = np.array(
             [0.9 * np.sin(2 * np.pi * t / period), 0.0, forward_speed * t]
         )
-        yaw = yaw_of(t)
+        yaw = _yaw_of(t, period)
         c, s = np.cos(yaw), np.sin(yaw)
         rot = np.array([[c, 0, -s], [0, 1, 0], [s, 0, c]])
         local = (pts - cam_t) @ rot.T
@@ -287,12 +279,51 @@ def render_parallax_video(
             # texture has comparable pixel footprint at any resolution.
             r = max(int(round(dot_scale * fx / z)), 1)
             if -r <= u < width + r and -r <= v < height + r:
-                cv2.rectangle(
-                    img, (int(u) - r, int(v) - r), (int(u) + r, int(v) + r),
-                    int(sh[i]), -1,
-                )
+                fill_square(img, int(u), int(v), r, sh[i])
+        yield img
+
+
+def fill_square(img: np.ndarray, x: int, y: int, r: int, value) -> None:
+    """Fill [x - r, x + r] x [y - r, y + r], corners inclusive, clipped to
+    the image: the pixels of a filled ``cv2.rectangle``."""
+    rows = slice(max(y - r, 0), max(y + r + 1, 0))
+    cols = slice(max(x - r, 0), max(x + r + 1, 0))
+    img[rows, cols] = value
+
+
+def _yaw_period(frames: int, period_frames: float) -> float:
+    # Lateral-swing period: any tracked SEGMENT must see a full 2-D sweep,
+    # or the trajectory-plane test (lambda3 > 1e-2 * lambda2,
+    # track_image_sequence.cc:85-92) rejects the near-collinear stretch.
+    return period_frames or 1.25 * frames
+
+
+def _yaw_of(t, period: float):
+    return 0.25 * np.cos(2 * np.pi * t / period)
+
+
+def parallax_yaw_rates(frames: int, period_frames: float = 0.0) -> np.ndarray:
+    """Analytic camera yaw rate of ``parallax_frames``, rad/s at 30 fps."""
+    period = _yaw_period(frames, period_frames)
+    return np.gradient(_yaw_of(np.arange(frames), period)) * 30.0
+
+
+def render_parallax_video(path: str, **kwargs):
+    """Write ``parallax_frames(**kwargs)`` to an mp4v video at 30 fps.
+
+    Returns (fx, fy, cx, cy, true_yaw_rate_per_frame).
+    """
+    import cv2
+
+    width = kwargs.get("width", 320)
+    height = kwargs.get("height", 240)
+    frames = kwargs.get("frames", 120)
+    fx = kwargs.get("fx", 250.0)
+    writer = cv2.VideoWriter(
+        path, cv2.VideoWriter_fourcc(*"mp4v"), 30.0, (width, height)
+    )
+    for img in parallax_frames(**kwargs):
         writer.write(cv2.cvtColor(img, cv2.COLOR_GRAY2BGR))
     writer.release()
-    ts = np.arange(frames)
-    rates = np.gradient(yaw_of(ts)) * 30.0  # rad/s at 30 fps
-    return fx, fx, cx, cy, rates
+    rates = parallax_yaw_rates(frames, kwargs.get("period_frames", 0.0))
+    return fx, fx, width / 2.0, height / 2.0, rates

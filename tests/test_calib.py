@@ -5,7 +5,7 @@ import pytest
 
 import oracle
 import synthetic
-from pilotguru_tpu.calib import (
+from pilotguru.calib import (
     FitMotionConfig,
     angular_velocities_around_axis,
     build_ride_pieces,

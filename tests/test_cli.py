@@ -5,7 +5,7 @@ import pytest
 
 import oracle
 import synthetic
-from pilotguru_tpu.formats import json_io, keys
+from pilotguru.formats import json_io, keys
 
 # Heavy e2e tier: excluded from the quick loop via `pytest -m "not slow"`.
 pytestmark = pytest.mark.slow
@@ -23,7 +23,7 @@ def ride_dir(tmp_path_factory):
 
 class TestFitMotionCli:
     def test_end_to_end(self, ride_dir, tmp_path):
-        from pilotguru_tpu.cli.fit_motion import main
+        from pilotguru.cli.fit_motion import main
 
         ride, d = ride_dir
         rc = main(
@@ -58,7 +58,7 @@ class TestFitMotionCli:
         assert abs(axis @ np.array([1.0, 0, 0])) > 0.98
 
     def test_flag_validation(self):
-        from pilotguru_tpu.cli.fit_motion import main
+        from pilotguru.cli.fit_motion import main
 
         with pytest.raises(SystemExit):
             main(["--rotations_json=x"])  # missing required flags
@@ -76,7 +76,7 @@ class TestFitMotionCli:
 
 class TestAnnotateFramesCli:
     def test_matches_oracle(self, ride_dir, tmp_path):
-        from pilotguru_tpu.cli.annotate_frames import main
+        from pilotguru.cli.annotate_frames import main
 
         ride, d = ride_dir
         # Annotate frames with GPS speeds.
@@ -110,7 +110,7 @@ class TestAnnotateFramesCli:
             np.testing.assert_allclose(e["speed_m_s"], want, rtol=1e-9)
 
     def test_smoothing_flag(self, ride_dir, tmp_path):
-        from pilotguru_tpu.cli.annotate_frames import main
+        from pilotguru.cli.annotate_frames import main
 
         _, d = ride_dir
         main(
@@ -141,7 +141,7 @@ class TestAnnotateFramesCli:
 
 class TestIntegrateMotionCli:
     def test_output_shape_and_sanity(self, ride_dir, tmp_path):
-        from pilotguru_tpu.cli.integrate_motion import main
+        from pilotguru.cli.integrate_motion import main
 
         ride, d = ride_dir
         rc = main(
@@ -163,7 +163,7 @@ class TestIntegrateMotionCli:
 
 class TestInterpolateVelocityCli:
     def test_interpolation_close_to_truth(self, ride_dir, tmp_path):
-        from pilotguru_tpu.cli.interpolate_velocity import main
+        from pilotguru.cli.interpolate_velocity import main
 
         ride, d = ride_dir
         rc = main(
@@ -199,7 +199,7 @@ class TestInterpolateVelocityCli:
         # The whole solve is deterministic: same objective, same analytic
         # init, same clipped-GD schedule. Autodiff gradients must reproduce
         # the reference's hand-derived ones step for step.
-        from pilotguru_tpu.calib.interpolate import (
+        from pilotguru.calib.interpolate import (
             InterpolationSettings,
             interpolate_gps_velocities,
         )
@@ -234,7 +234,7 @@ class TestInterpolateVelocityCli:
 
 class TestJsonShapeCompat:
     def test_velocities_json_shape(self, ride_dir, tmp_path):
-        from pilotguru_tpu.cli.fit_motion import main
+        from pilotguru.cli.fit_motion import main
 
         _, d = ride_dir
         main(

@@ -10,14 +10,14 @@ import os
 import numpy as np
 import pytest
 
-from pilotguru_tpu.calib import (
+from pilotguru.calib import (
     CorpusBuckets,
     FitMotionConfig,
     RideArrays,
     fit_motion_arrays,
     fit_motion_corpus,
 )
-from tests.synthetic import make_ride, write_ride_jsons
+from synthetic import make_ride, write_ride_jsons
 
 # Heavy e2e tier: excluded from the quick loop via `pytest -m "not slow"`.
 pytestmark = pytest.mark.slow
@@ -113,7 +113,7 @@ def test_corpus_matches_per_ride_fit_motion():
 def test_corpus_window_sharded_over_mesh():
     import jax
 
-    from pilotguru_tpu.parallel.mesh import make_mesh
+    from pilotguru.parallel.mesh import make_mesh
 
     devices = jax.devices()
     if len(devices) < 2:
@@ -142,7 +142,7 @@ def test_corpus_window_sharded_over_mesh():
 
 
 def test_preprocess_corpus_cli(tmp_path):
-    from pilotguru_tpu.cli import preprocess_corpus
+    from pilotguru.cli import preprocess_corpus
 
     rides = _rides()
     for i, ride in enumerate(rides):
@@ -158,7 +158,7 @@ def test_preprocess_corpus_cli(tmp_path):
     )
     assert rc == 0
 
-    from pilotguru_tpu.formats import json_io, keys
+    from pilotguru.formats import json_io, keys
 
     for i, ride in enumerate(rides):
         out = tmp_path / f"ride-{i}" / "postprocessed"
@@ -174,7 +174,7 @@ def test_preprocess_corpus_cli(tmp_path):
 
 
 def test_find_ride_dirs_skips_non_rides(tmp_path):
-    from pilotguru_tpu.cli.preprocess_corpus import find_ride_dirs
+    from pilotguru.cli.preprocess_corpus import find_ride_dirs
 
     os.makedirs(tmp_path / "ride-0")
     (tmp_path / "ride-0" / "rotations.json").write_text("{}")
@@ -184,7 +184,7 @@ def test_find_ride_dirs_skips_non_rides(tmp_path):
 
 
 def test_rotation_axis_bucketing_is_exactly_neutral():
-    from pilotguru_tpu.calib.rotation_axis import principal_rotation_axes
+    from pilotguru.calib.rotation_axis import principal_rotation_axes
 
     ride = _rides()[0]
     plain_axes, plain_eig = principal_rotation_axes(
@@ -202,7 +202,7 @@ def test_rotation_axis_bucketing_is_exactly_neutral():
 
 
 def test_smoothing_bucketing_is_exactly_neutral():
-    from pilotguru_tpu.timeseries.smoothing import smooth_time_series
+    from pilotguru.timeseries.smoothing import smooth_time_series
 
     rng = np.random.default_rng(0)
     t = np.cumsum(rng.uniform(0.004, 0.012, size=777))

@@ -4,14 +4,14 @@ import pytest
 
 import oracle
 import synthetic
-from pilotguru_tpu.calib.forward_axis_calibrator import (
+from pilotguru.calib.forward_axis_calibrator import (
     calibrate_fixed_forward_axis,
     initial_state,
     loss,
     normalize_velocities,
     residuals,
 )
-from pilotguru_tpu.calib.pieces import build_ride_pieces
+from pilotguru.calib.pieces import build_ride_pieces
 
 
 @pytest.fixture(scope="module")

@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import oracle
-from pilotguru_tpu.geometry import (
+from pilotguru.geometry import (
     integrate_motion,
     quat_conjugate,
     quat_cumulative_product,

@@ -12,8 +12,8 @@ LoopClosing::DetectLoop returns KeyFrame pointers, i.e. identity
 
 import numpy as np
 
-from pilotguru_tpu.vo.loopclosing import detect_candidate
-from pilotguru_tpu.vo.tracking import Keyframe, TrackerConfig
+from pilotguru.vo.loopclosing import detect_candidate
+from pilotguru.vo.tracking import Keyframe, TrackerConfig
 
 
 class _StubTracker:
@@ -78,7 +78,7 @@ def test_candidate_culled_between_sweep_and_consume_returns_none_or_valid():
     )
     current = _keyframe(99, revisit_desc.copy())
 
-    from pilotguru_tpu.vo.loopclosing import start_vote_sweep
+    from pilotguru.vo.loopclosing import start_vote_sweep
 
     handle = start_vote_sweep(tracker, current)
     # Cull the winner before the handle is consumed (kf_id-keyed drop path).

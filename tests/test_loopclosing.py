@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-from pilotguru_tpu.vo.tracking import (
+from pilotguru.vo.tracking import (
     LOST,
     CameraModel,
     MonocularTracker,
@@ -96,7 +96,7 @@ def drive_loop(enable_loop_closing, num_frames=90, seed=0):
         enable_loop_closing=enable_loop_closing,
         loop_min_match_count=40,
         loop_min_inliers=15,
-        # Global BA is the production default (MXU-friendly); its XLA
+        # Global BA is the production default (one dense solve); its XLA
         # compile on the 1-core CPU test host is prohibitive, so the test
         # uses the seam-window BA tier.
         loop_ba="seam",

@@ -10,7 +10,7 @@ rendering-free synthetic-feature harness as test_vo_tracking.
 import numpy as np
 import pytest
 
-from pilotguru_tpu.vo.tracking import (
+from pilotguru.vo.tracking import (
     LOST,
     OK,
     CameraModel,
@@ -76,7 +76,7 @@ class TestArenaPressure:
         # Round-1 behavior: when the fixed arena fills, new points were
         # silently dropped until tracking degraded. Now the worst off-window
         # points must be recycled and tracking must survive the full ride
-        # (VERDICT round-1, item 3). max_map_points=300 saturates within a
+        # (a round-1 review item). max_map_points=300 saturates within a
         # few keyframes on the standard scene.
         scene = SyntheticScene()
         config = TrackerConfig(max_map_points=300, **BASE)
@@ -139,7 +139,7 @@ class TestFusion:
     path, where closures fuse 20+ points.)"""
 
     def _tracker_with_duplicate(self):
-        from pilotguru_tpu.vo.tracking import Keyframe
+        from pilotguru.vo.tracking import Keyframe
 
         rng = np.random.default_rng(0)
         config = TrackerConfig(max_map_points=64, **BASE)

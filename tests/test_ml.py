@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pilotguru_tpu.ml import augmentation as aug
-from pilotguru_tpu.ml import data as data_lib
-from pilotguru_tpu.ml import models, training, weighting
+from pilotguru.ml import augmentation as aug
+from pilotguru.ml import data as data_lib
+from pilotguru.ml import models, training, weighting
 
 # Heavy e2e tier: excluded from the quick loop via `pytest -m "not slow"`.
 pytestmark = pytest.mark.slow

@@ -16,8 +16,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pilotguru_tpu.ml import augmentation as aug
-from pilotguru_tpu.ml import folded, models, training
+from pilotguru.ml import augmentation as aug
+from pilotguru.ml import folded, models, training
 
 pytestmark = pytest.mark.slow
 

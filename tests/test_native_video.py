@@ -24,7 +24,7 @@ def native_lib():
         check=True, capture_output=True,
     )
     subprocess.run(["cmake", "--build", BUILD_DIR], check=True, capture_output=True)
-    from pilotguru_tpu.video import native
+    from pilotguru.video import native
 
     assert native.available()
     return native

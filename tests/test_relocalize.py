@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pilotguru_tpu.vo.pose import project, transform
-from pilotguru_tpu.vo.relocalize import dlt_pose, relocalize
-from pilotguru_tpu.vo.tracking import CameraModel, MonocularTracker, TrackerConfig
+from pilotguru.vo.pose import project, transform
+from pilotguru.vo.relocalize import dlt_pose, relocalize
+from pilotguru.vo.tracking import CameraModel, MonocularTracker, TrackerConfig
 from test_vo_tracking import SyntheticScene
 import pytest
 
@@ -64,7 +64,7 @@ class TestRelocalize:
         assert int(result.num_inliers) > 30
         # Pose agrees with the tracked trajectory pose at the same time
         # (same map scale/gauge): compare camera centers.
-        from pilotguru_tpu.vo.pose import rotvec_to_matrix
+        from pilotguru.vo.pose import rotvec_to_matrix
 
         pose = np.asarray(result.pose6)
         r = np.asarray(rotvec_to_matrix(jnp.asarray(pose[:3])))

@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pilotguru_tpu.vo import posegraph, sim3
-from pilotguru_tpu.vo.pose import rotvec_to_matrix
+from pilotguru.vo import posegraph, sim3
+from pilotguru.vo.pose import rotvec_to_matrix
 
 
 def _random_sim7(rng, scale_span=0.4):

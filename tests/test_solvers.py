@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pilotguru_tpu.solvers import (
+from pilotguru.solvers import (
     batched_levenberg_marquardt,
     gradient_descent,
     levenberg_marquardt,

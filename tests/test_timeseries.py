@@ -2,7 +2,7 @@ import numpy as np
 import pytest
 
 import oracle
-from pilotguru_tpu.timeseries import (
+from pilotguru.timeseries import (
     annotate_frames_values,
     make_interpolation_pieces,
     merge_time_series,

@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from pilotguru_tpu.formats import can as can_lib
-from pilotguru_tpu.formats import json_io
+from pilotguru.formats import can as can_lib
+from pilotguru.formats import json_io
 
 # Heavy e2e tier: excluded from the quick loop via `pytest -m "not slow"`.
 pytestmark = pytest.mark.slow
@@ -54,7 +54,7 @@ class TestCanParsing:
 
 class TestProcessCanFramesCli:
     def test_end_to_end(self, tmp_path):
-        from pilotguru_tpu.cli.process_can_frames import main
+        from pilotguru.cli.process_can_frames import main
 
         frames = [
             {"time_usec": 1000, "can_frame": "2B0 64 00 00 00 00"},  # 10 deg
@@ -98,8 +98,8 @@ def tiny_video(tmp_path_factory):
 
 class TestRenderClis:
     def test_render_frame_numbers(self, tiny_video, tmp_path):
-        from pilotguru_tpu.cli.render_frame_numbers import main
-        from pilotguru_tpu.video.io import read_video_rgb
+        from pilotguru.cli.render_frame_numbers import main
+        from pilotguru.video.io import read_video_rgb
 
         path, _ = tiny_video
         out = str(tmp_path / "numbered.mp4")
@@ -119,8 +119,8 @@ class TestRenderClis:
     def test_render_motion(self, tiny_video, tmp_path):
         import cv2
 
-        from pilotguru_tpu.cli.render_motion import main
-        from pilotguru_tpu.video.io import read_video_rgb
+        from pilotguru.cli.render_motion import main
+        from pilotguru.video.io import read_video_rgb
 
         path, _ = tiny_video
         wheel = np.zeros((24, 24, 3), np.uint8)
@@ -164,7 +164,7 @@ class TestRenderClis:
 
 class TestMakeSteeringDataset:
     def test_end_to_end(self, tiny_video, tmp_path):
-        from pilotguru_tpu.cli.make_steering_dataset import main
+        from pilotguru.cli.make_steering_dataset import main
 
         video_path, _ = tiny_video
         # Frames at 30 fps; steering + velocity series covering them.
@@ -234,9 +234,9 @@ class TestPredictClis:
         """Train a tiny toy net and return (settings_json, weights_paths)."""
         import jax
 
-        from pilotguru_tpu.ml import augmentation as aug
-        from pilotguru_tpu.ml import data as data_lib
-        from pilotguru_tpu.ml import models, training, weighting
+        from pilotguru.ml import augmentation as aug
+        from pilotguru.ml import data as data_lib
+        from pilotguru.ml import models, training, weighting
 
         d = tmp_path_factory.mktemp("trained")
         rng = np.random.default_rng(0)
@@ -291,7 +291,7 @@ class TestPredictClis:
         return settings_path, weights, str(d / "forward.json")
 
     def test_predict_video(self, trained, tiny_video, tmp_path):
-        from pilotguru_tpu.cli.predict_video import main
+        from pilotguru.cli.predict_video import main
 
         settings_path, weights, forward = trained
         video_path, _ = tiny_video
@@ -317,7 +317,7 @@ class TestPredictClis:
 
         import zmq
 
-        from pilotguru_tpu.cli.predict_live import main
+        from pilotguru.cli.predict_live import main
 
         settings_path, weights, forward = trained
         video_path, _ = tiny_video
@@ -363,8 +363,8 @@ class TestPredictClis:
 
 class TestPixelImportance:
     def test_saliency_video(self, tiny_video, tmp_path, request):
-        from pilotguru_tpu.cli.render_input_pixel_importance import main
-        from pilotguru_tpu.video.io import read_video_rgb
+        from pilotguru.cli.render_input_pixel_importance import main
+        from pilotguru.video.io import read_video_rgb
 
         settings_path, weights, forward = request.getfixturevalue("trained")
         video_path, _ = tiny_video
@@ -393,7 +393,7 @@ class TestPixelImportance:
 
 class TestSmallWrappers:
     def test_make_linear_adjusted_label_shift(self, capsys):
-        from pilotguru_tpu.cli.make_linear_adjusted_label_shift import main
+        from pilotguru.cli.make_linear_adjusted_label_shift import main
 
         main(["--start_value=0.0", "--end_value=1.0", "--dims=4"])
         out = capsys.readouterr().out.strip()
@@ -404,7 +404,7 @@ class TestSmallWrappers:
     def test_preprocess_all(self, tmp_path):
         import synthetic
 
-        from pilotguru_tpu.cli.preprocess_all import main
+        from pilotguru.cli.preprocess_all import main
 
         ride = synthetic.make_ride(duration_sec=30.0, imu_hz=30.0, jitter_seed=5)
         in_dir = tmp_path / "ride"
@@ -420,8 +420,8 @@ class TestCalibrateCli:
     def test_chessboard_video_calibration(self, tmp_path):
         import cv2
 
-        from pilotguru_tpu.cli.calibrate import main
-        from pilotguru_tpu.vo.camera import read_camera_settings
+        from pilotguru.cli.calibrate import main
+        from pilotguru.vo.camera import read_camera_settings
 
         # Render a synthetic chessboard through a known pinhole camera.
         fx = fy = 300.0
@@ -494,7 +494,7 @@ class TestHyperparamsSearch:
         chip)."""
         import json
 
-        from pilotguru_tpu.cli import hyperparams_search
+        from pilotguru.cli import hyperparams_search
 
         rng = np.random.default_rng(1)
         data_dir = tmp_path / "data"
@@ -544,13 +544,13 @@ class TestHyperparamsSearch:
 
     def test_compatible_folds_group_into_one_sharded_program(self, tmp_path):
         """Folds sweeping only the learning rate share one compiled vmapped
-        super-ensemble sharded over the device mesh — the TPU-native
+        super-ensemble sharded over the device mesh — the
         replacement for the reference's least-loaded-GPU process pool
         (python/hyperparams_search.py:30-44, 118-153). 8 folds on 8 virtual
         devices = one net per device, one train step per batch total."""
         import json
 
-        from pilotguru_tpu.cli import hyperparams_search
+        from pilotguru.cli import hyperparams_search
 
         lrs = [3e-3, 2.5e-3, 2e-3, 1.5e-3, 1e-3, 8e-4, 5e-4, 3e-4]
         settings_list = [
@@ -624,7 +624,7 @@ class TestHyperparamsSearch:
     def test_no_matching_settings_files_errors(self, tmp_path):
         import pytest as _pytest
 
-        from pilotguru_tpu.cli import hyperparams_search
+        from pilotguru.cli import hyperparams_search
 
         with _pytest.raises(SystemExit):
             hyperparams_search.main(

@@ -20,8 +20,8 @@ import os
 
 import numpy as np
 
-from pilotguru_tpu.formats import json_io
-from tests.synthetic import make_ride, write_ride_jsons
+from pilotguru.formats import json_io
+from synthetic import make_ride, write_ride_jsons
 import pytest
 
 # Heavy e2e tier: excluded from the quick loop via `pytest -m "not slow"`.
@@ -33,7 +33,7 @@ TARGET_HEIGHT, TARGET_WIDTH = 48, 64  # toy net needs >=48px after 3 pools
 
 def _render_steering_video(path, ride, fps):
     """Bar x-position linearly encodes the yaw rate at each frame time."""
-    from pilotguru_tpu.video.io import VideoWriterRgb
+    from pilotguru.video.io import VideoWriterRgb
 
     yaw_rates = ride.yaw_rate_at(ride.frame_times_usec)
     scale = (WIDTH / 2 - 6) / (np.max(np.abs(yaw_rates)) + 1e-9)
@@ -47,7 +47,7 @@ def _render_steering_video(path, ride, fps):
 
 
 def test_record_to_predict_user_journey(tmp_path):
-    from pilotguru_tpu.cli import (
+    from pilotguru.cli import (
         make_steering_dataset,
         predict_video,
         preprocess_all,

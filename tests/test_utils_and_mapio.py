@@ -3,9 +3,9 @@ import json
 
 import numpy as np
 
-from pilotguru_tpu.utils.profiling import StageTimer
-from pilotguru_tpu.vo.map_io import load_tracker_map, save_tracker_map
-from pilotguru_tpu.vo.tracking import CameraModel, MonocularTracker, TrackerConfig
+from pilotguru.utils.profiling import StageTimer
+from pilotguru.vo.map_io import load_tracker_map, save_tracker_map
+from pilotguru.vo.tracking import CameraModel, MonocularTracker, TrackerConfig
 from test_vo_tracking import SyntheticScene
 
 
@@ -32,7 +32,7 @@ class TestStageTimer:
     def test_fit_motion_reports_stages(self):
         import synthetic
 
-        from pilotguru_tpu.calib import FitMotionConfig, fit_motion_arrays
+        from pilotguru.calib import FitMotionConfig, fit_motion_arrays
 
         r = synthetic.make_ride(duration_sec=25.0, imu_hz=20.0, jitter_seed=9)
         timer = StageTimer("fit_motion")
@@ -93,7 +93,7 @@ class TestTrackerMapIo:
 
 class TestKahanSum:
     def test_compensates_catastrophic_accumulation(self):
-        from pilotguru_tpu.utils.kahan import KahanSum, kahan_sum
+        from pilotguru.utils.kahan import KahanSum, kahan_sum
 
         # Classic failure case: 1 + many tiny terms.
         acc = KahanSum()
@@ -106,7 +106,7 @@ class TestKahanSum:
         assert kahan_sum(values) == 1000.0
 
     def test_vector_accumulation(self):
-        from pilotguru_tpu.utils.kahan import kahan_sum
+        from pilotguru.utils.kahan import kahan_sum
 
         rng = np.random.default_rng(0)
         values = rng.normal(size=(500, 3))
@@ -117,7 +117,7 @@ class TestKahanSum:
 
 class TestSynchronizedLatestValue:
     def test_overwrite_keeps_only_latest(self):
-        from pilotguru_tpu.utils.latest_value import SynchronizedLatestValue
+        from pilotguru.utils.latest_value import SynchronizedLatestValue
 
         cell = SynchronizedLatestValue()
         assert cell.latest() == (None, 0)
@@ -127,7 +127,7 @@ class TestSynchronizedLatestValue:
         assert (value, update_id) == ("b", last_id)
 
     def test_get_next_times_out_without_newer_value(self):
-        from pilotguru_tpu.utils.latest_value import SynchronizedLatestValue
+        from pilotguru.utils.latest_value import SynchronizedLatestValue
 
         cell = SynchronizedLatestValue()
         update_id = cell.set(42)
@@ -137,7 +137,7 @@ class TestSynchronizedLatestValue:
     def test_producer_consumer_threads(self):
         import threading
 
-        from pilotguru_tpu.utils.latest_value import SynchronizedLatestValue
+        from pilotguru.utils.latest_value import SynchronizedLatestValue
 
         cell = SynchronizedLatestValue()
         seen = []
@@ -168,7 +168,7 @@ class TestFormatSequence:
     (include/logging/strings.hpp:8-20)."""
 
     def test_matches_reference_stream_layout(self):
-        from pilotguru_tpu.utils.strings import format_sequence
+        from pilotguru.utils.strings import format_sequence
 
         assert format_sequence([1, 2, 3]) == "{1, 2, 3}"
         assert format_sequence([]) == "{}"

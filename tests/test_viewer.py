@@ -10,7 +10,7 @@ import urllib.request
 
 import numpy as np
 
-from pilotguru_tpu.vo.viewer import LiveViewer, _rotvec_matrix
+from pilotguru.vo.viewer import LiveViewer, _rotvec_matrix
 
 
 class _FakeKeyframe:
@@ -79,7 +79,7 @@ class TestLiveViewer:
             viewer.close()
 
     def test_rotvec_matrix_matches_quaternion_path(self):
-        from pilotguru_tpu.vo.pose import rotvec_to_matrix
+        from pilotguru.vo.pose import rotvec_to_matrix
 
         rng = np.random.default_rng(1)
         for _ in range(5):
@@ -90,7 +90,7 @@ class TestLiveViewer:
 
     def test_center_reconstruction(self):
         """-R^T t must invert the world->camera convention (pose.py:62)."""
-        from pilotguru_tpu.vo.pose import transform
+        from pilotguru.vo.pose import transform
 
         rng = np.random.default_rng(2)
         pose6 = rng.normal(size=6)

@@ -3,9 +3,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pilotguru_tpu.vo import ba as ba_lib
-from pilotguru_tpu.vo import features, matching, pose as pose_lib, twoview
-from pilotguru_tpu.vo.flatten import (
+from pilotguru.vo import ba as ba_lib
+from pilotguru.vo import features, matching, pose as pose_lib, twoview
+from pilotguru.vo.flatten import (
     plane_is_valid,
     project_directions,
     project_translations,
@@ -129,7 +129,7 @@ class TestExtractor:
         """Between bin centers the binned steering moves taps by at most
         ~2 px; on a smoothed (real-image-like) texture the descriptors stay
         close to the exact-angle gather path."""
-        from pilotguru_tpu.ml.augmentation import gaussian_blur
+        from pilotguru.ml.augmentation import gaussian_blur
 
         rng = np.random.default_rng(5)
         img = jnp.asarray(_textured_image(rng, h=160, w=200))
@@ -374,7 +374,7 @@ class TestPoseOptimization:
             np.testing.assert_allclose(w_back, w, atol=1e-7)
             q = np.asarray(pose_lib.matrix_to_quat(jnp.asarray(r)))
             # Quaternion reproduces the same rotation matrix.
-            from pilotguru_tpu.geometry.quaternion import quat_to_rotation_matrix
+            from pilotguru.geometry.quaternion import quat_to_rotation_matrix
 
             r_q = np.asarray(quat_to_rotation_matrix(jnp.asarray(q)))
             np.testing.assert_allclose(r_q, r, atol=1e-7)
@@ -538,7 +538,7 @@ class TestFlatten:
         np.testing.assert_allclose(project_translations(flat, plane), flat)
 
     def test_project_directions_unit_z(self):
-        from pilotguru_tpu.geometry.quaternion import quat_normalize
+        from pilotguru.geometry.quaternion import quat_normalize
 
         rng = np.random.default_rng(15)
         q = np.asarray(quat_normalize(jnp.asarray(rng.normal(size=(20, 4)))))
@@ -557,7 +557,7 @@ class TestCameraModel:
         """
         import cv2
 
-        from pilotguru_tpu.vo.tracking import CameraModel
+        from pilotguru.vo.tracking import CameraModel
 
         fx, fy, cx, cy = 700.0, 705.0, 640.0, 360.0
         k1, k2, p1, p2 = -0.28, 0.07, 1.5e-3, -8e-4
@@ -590,7 +590,7 @@ class TestCameraModel:
         np.testing.assert_allclose(got, want, atol=2e-3)
 
     def test_zero_distortion_is_pure_pinhole(self):
-        from pilotguru_tpu.vo.tracking import CameraModel
+        from pilotguru.vo.tracking import CameraModel
 
         cam = CameraModel(500.0, 500.0, 320.0, 240.0)
         pix = np.array([[320.0, 240.0], [820.0, 740.0]])

@@ -7,18 +7,18 @@ import os
 import numpy as np
 import pytest
 
-from pilotguru_tpu.formats.trajectory import (
+from pilotguru.formats.trajectory import (
     Trajectory,
     read_trajectory,
     write_trajectory,
 )
-from pilotguru_tpu.vo.camera import CameraSettings, read_camera_settings, write_camera_settings
-from pilotguru_tpu.vo.pipeline import (
+from pilotguru.vo.camera import CameraSettings, read_camera_settings, write_camera_settings
+from pilotguru.vo.pipeline import (
     VideoFrame,
     track_video_segments,
     trajectory_from_tracker,
 )
-from pilotguru_tpu.vo.tracking import CameraModel, MonocularTracker, TrackerConfig
+from pilotguru.vo.tracking import CameraModel, MonocularTracker, TrackerConfig
 from test_vo_tracking import SyntheticScene
 
 # Heavy e2e tier: excluded from the quick loop via `pytest -m "not slow"`.
@@ -153,7 +153,7 @@ class TestTrajectoryClis:
         for i, t in enumerate(np.arange(0, 6.0, 0.25)):
             tracker.process_frame(t, i, int(t * 1e6))
         traj = trajectory_from_tracker(tracker)
-        from pilotguru_tpu.vo.pipeline import postprocess_segment
+        from pilotguru.vo.pipeline import postprocess_segment
 
         traj = postprocess_segment(traj)
         assert traj is not None
@@ -162,7 +162,7 @@ class TestTrajectoryClis:
         return path
 
     def test_smooth_heading_directions_cli(self, trajectory_file, tmp_path):
-        from pilotguru_tpu.cli.smooth_heading_directions import main
+        from pilotguru.cli.smooth_heading_directions import main
 
         out = str(tmp_path / "smoothed.json")
         assert main([
@@ -182,7 +182,7 @@ class TestTrajectoryClis:
         assert after.turn_angles is not None
 
     def test_project_translations_cli(self, trajectory_file, tmp_path):
-        from pilotguru_tpu.cli.project_translations import main
+        from pilotguru.cli.project_translations import main
 
         out = str(tmp_path / "projected.json")
         assert main([
@@ -204,8 +204,8 @@ class TestPrefetchFeatures:
         per-frame extractor would."""
         import jax.numpy as jnp
 
-        from pilotguru_tpu.vo.pipeline import VideoFrame, prefetch_features
-        from pilotguru_tpu.vo.tracking import CameraModel, MonocularTracker, TrackerConfig
+        from pilotguru.vo.pipeline import VideoFrame, prefetch_features
+        from pilotguru.vo.tracking import CameraModel, MonocularTracker, TrackerConfig
 
         rng = np.random.default_rng(3)
         config = TrackerConfig(total_budget=128, num_levels=2)
@@ -249,8 +249,8 @@ class TestOpticalTrajectoriesCli:
         the same correlation."""
         import cv2
 
-        from pilotguru_tpu.cli import optical_trajectories
-        from pilotguru_tpu.formats import json_io
+        from pilotguru.cli import optical_trajectories
+        from pilotguru.formats import json_io
         from tests.synthetic import render_parallax_video
 
         video = str(tmp_path / "video.mp4")
@@ -298,12 +298,12 @@ class TestOpticalTrajectoriesCli:
         / 8 pyramid levels — src/calibrate.cc:518-531), the config the
         bench runs at. Round 2 shipped green on toy-scale tests while the
         bench config lost tracking twice and produced zero accepted
-        segments (BENCH_r02); this test pins the bench-scale behavior so it
+        segments; this test pins the bench-scale behavior so it
         can never silently regress again. Kept to 100 frames so the slow
         tier stays affordable on a 1-core host."""
-        from pilotguru_tpu.vo.camera import CameraSettings
-        from pilotguru_tpu.vo.flatten import flatten_trajectory
-        from pilotguru_tpu.vo.pipeline import (
+        from pilotguru.vo.camera import CameraSettings
+        from pilotguru.vo.flatten import flatten_trajectory
+        from pilotguru.vo.pipeline import (
             track_video_segments,
             trajectory_from_tracker,
             video_frames,
@@ -326,7 +326,7 @@ class TestOpticalTrajectoriesCli:
         assert consumed == num_frames
         assert segments >= 1, "no accepted segment at reference budget"
 
-        from pilotguru_tpu.formats import json_io
+        from pilotguru.formats import json_io
 
         root = json_io.read_json(str(out_dir / "trajectory-0000.json"))
         points = root["trajectory"]
@@ -349,8 +349,8 @@ class TestOpticalTrajectoriesCli:
         must exist with the same frame cadence as the full input."""
         import cv2
 
-        from pilotguru_tpu.cli import optical_trajectories
-        from pilotguru_tpu.formats import json_io
+        from pilotguru.cli import optical_trajectories
+        from pilotguru.formats import json_io
         from tests.synthetic import render_parallax_video
 
         video = str(tmp_path / "video.mp4")
@@ -417,8 +417,8 @@ class TestOpticalTrajectoriesCli:
 
         import cv2
 
-        from pilotguru_tpu.cli import optical_trajectories
-        from pilotguru_tpu.vo import viewer as viewer_mod
+        from pilotguru.cli import optical_trajectories
+        from pilotguru.vo import viewer as viewer_mod
         from tests.synthetic import render_parallax_video
 
         video = str(tmp_path / "video.mp4")
@@ -481,8 +481,8 @@ class TestOpticalTrajectoriesCli:
         Asserts: no silent point loss (arena culling/recycling keeps up),
         bounded drift (turn-rate fidelity holds over the FINAL third as
         well as the whole segment), and no more than one mid-ride LOST."""
-        from pilotguru_tpu.formats import json_io
-        from pilotguru_tpu.vo.pipeline import (
+        from pilotguru.formats import json_io
+        from pilotguru.vo.pipeline import (
             prefetch_features,
             track_video_segments,
             tracker_from_settings,
@@ -572,7 +572,7 @@ class TestImageListSource:
         taken from the list."""
         import cv2
 
-        from pilotguru_tpu.vo.pipeline import video_frames
+        from pilotguru.vo.pipeline import video_frames
         from tests.synthetic import render_parallax_video
 
         video = str(tmp_path / "video.mp4")
@@ -612,7 +612,7 @@ class TestImageListSource:
     def test_vertical_flip(self, tmp_path):
         import cv2
 
-        from pilotguru_tpu.vo.pipeline import video_frames
+        from pilotguru.vo.pipeline import video_frames
 
         (tmp_path / "rgb").mkdir()
         img = np.zeros((8, 8, 3), np.uint8)

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pilotguru_tpu.vo.flatten import flatten_trajectory
-from pilotguru_tpu.vo.pose import rotvec_to_matrix
-from pilotguru_tpu.vo.tracking import (
+from pilotguru.vo.flatten import flatten_trajectory
+from pilotguru.vo.pose import rotvec_to_matrix
+from pilotguru.vo.tracking import (
     OK,
     CameraModel,
     MonocularTracker,
@@ -144,7 +144,7 @@ class TestTracking:
 
     def test_flatten_produces_valid_plane_and_turns(self, tracked):
         scene, tracker, _, _ = tracked
-        from pilotguru_tpu.formats.trajectory import Trajectory
+        from pilotguru.formats.trajectory import Trajectory
 
         n = len(tracker.trajectory)
         traj = Trajectory(

@@ -2,13 +2,13 @@
 
 The reference loads ORBvoc.txt via DBoW2 TemplatedVocabulary and fails on a
 bad path/file (System.cc). This framework validates the file but replaces
-the index with exhaustive MXU matching; these tests pin the validator's
+the index with exhaustive Hamming matching; these tests pin the validator's
 accept/reject behavior on the DBoW2 text format.
 """
 
 import pytest
 
-from pilotguru_tpu.vo.vocabulary import validate_dbow2_vocabulary
+from pilotguru.vo.vocabulary import validate_dbow2_vocabulary
 
 
 def _node_line(parent=0, is_leaf=1, weight=1.5, byte=7):
@@ -68,7 +68,7 @@ class TestValidateVocabulary:
         # The CLI must fail loudly on an invalid vocabulary BEFORE any
         # tracking work (reference: System constructor aborts on a bad
         # vocabulary load).
-        from pilotguru_tpu.cli import optical_trajectories
+        from pilotguru.cli import optical_trajectories
 
         bad = _write(tmp_path, "not a vocabulary\n")
         with pytest.raises(ValueError, match="header"):

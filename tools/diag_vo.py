@@ -1,11 +1,11 @@
-"""Diagnose VO tracking at reference scale (the BENCH_r02 failure).
+"""Diagnose VO tracking at reference scale.
 
 Renders the exact bench ride (720p, 150 frames, 2000 feat / 8 levels),
 runs the tracker with per-frame logging, and compares the estimated
 trajectory against the analytically-known camera path
 (tests/synthetic.py:render_parallax_video).
 
-Run on the TPU chip from /root/repo:  python tools/diag_vo.py
+Run from the repository root:  python tools/diag_vo.py
 """
 
 import os
@@ -19,14 +19,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tests.synthetic import render_parallax_video  # noqa: E402
 
-from pilotguru_tpu.vo.camera import CameraSettings  # noqa: E402
-from pilotguru_tpu.vo.pipeline import (  # noqa: E402
+from pilotguru.vo.camera import CameraSettings  # noqa: E402
+from pilotguru.vo.pipeline import (  # noqa: E402
     prefetch_features,
     tracker_from_settings,
     trajectory_from_tracker,
     video_frames,
 )
-from pilotguru_tpu.vo.tracking import LOST  # noqa: E402
+from pilotguru.vo.tracking import LOST  # noqa: E402
 
 
 def main():

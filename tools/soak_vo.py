@@ -1,4 +1,4 @@
-"""Long-ride VO soak driver (VERDICT r2 item 9).
+"""Long-ride VO soak driver.
 
 Renders a corridor drive with continuous scenery turnover and runs the
 tracker at the reference feature budget (2000 features / 8 levels,
@@ -32,9 +32,9 @@ def run_soak(
     out_dir: str | None = None,
     max_map_points: int = 0,
 ):
-    from pilotguru_tpu.formats import json_io
-    from pilotguru_tpu.vo.camera import CameraSettings
-    from pilotguru_tpu.vo.pipeline import (
+    from pilotguru.formats import json_io
+    from pilotguru.vo.camera import CameraSettings
+    from pilotguru.vo.pipeline import (
         track_video_segments,
         tracker_from_settings,
         video_frames,
@@ -59,13 +59,13 @@ def run_soak(
     def make_tracker():
         t = tracker_from_settings(settings)
         if max_map_points:
-            # Engineered arena pressure (VERDICT r3 item 7): shrink the
+            # Engineered arena pressure: shrink the
             # point arena at the reference feature budget so recycling
             # actually engages on a soak-length ride. Rebuild the tracker
             # (arena arrays are sized in __init__).
             import dataclasses
 
-            from pilotguru_tpu.vo.tracking import MonocularTracker
+            from pilotguru.vo.tracking import MonocularTracker
 
             config = dataclasses.replace(
                 t.config, max_map_points=max_map_points
